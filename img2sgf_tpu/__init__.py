@@ -1,8 +1,9 @@
-"""img2sgf_tpu: a TPU-native (JAX/XLA/Pallas) rebuild of hanysz/img2sgf.
+"""img2sgf_tpu: a JAX/XLA rebuild of hanysz/img2sgf.
 
 Converts images of printed Go diagrams into SGF files. The detection
 pipeline (preprocess, blur pyramid, Canny, Hough circles/lines, grid
-recovery, stone classification) runs as one jitted, batched program on TPU;
+recovery, stone classification) runs as one jitted, batched program on
+the accelerator;
 the GUI and SGF writer are thin host-side shims over the same public
 detection functions.
 """

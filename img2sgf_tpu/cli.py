@@ -16,24 +16,12 @@ import sys
 
 import numpy as np
 
-
-def _enable_compile_cache():
-    """Persistent XLA compile cache: image sizes recur, compiles are slow."""
-    import jax
-
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get("IMG2SGF_CACHE", "/tmp/jax_cache_tpu"),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+from .compile_cache import enable_compile_cache
 
 
 def run_headless(input_path: str, output_path: str | None, verbose: bool = True,
                  fast: bool = False) -> int:
-    _enable_compile_cache()
+    enable_compile_cache()
     from .config import DetectionConfig, choose_line_threshold
     from .core import to_sgf
     from .hostio import load_rgb
@@ -89,7 +77,7 @@ def run_batch(inputs, outdir: str | None, batch_size: int = 16,
     import glob as globmod
     import time
 
-    _enable_compile_cache()
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from .config import DetectionConfig, choose_line_threshold

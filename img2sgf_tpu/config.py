@@ -1,7 +1,7 @@
 """Detection configuration.
 
 One frozen dataclass holding every tunable of the reference pipeline plus the
-static capacity knobs the TPU build needs (fixed shapes under jit).
+static capacity knobs a jitted build needs (fixed shapes under jit).
 
 Reference field origins (file:line in /root/reference/img2sgf.py):
   board_size=19                 :43
@@ -60,7 +60,7 @@ class DetectionConfig:
     circle_min_radius: int = 1
     circle_max_radius: int = 30
 
-    # --- TPU static-shape capacity knobs (not present in the reference; the
+    # --- static-shape capacity knobs (not present in the reference; the
     # reference uses dynamic Python lists, we use fixed-capacity arrays+counts)
     max_circles_per_variant: int = 384  # accepted circles kept per blur
     #                                     variant. Must exceed the densest
@@ -193,9 +193,9 @@ class DetectionConfig:
     #                                     >1 spends the candidate budget on
     #                                     distinct regions instead of
     #                                     clusters of near-duplicate maxima)
-    hysteresis_iters: int = 256         # Canny hysteresis sweep bound. Both
-    #                                     the XLA and Pallas sweeps early-exit
-    #                                     on convergence (while_loop), so the
+    hysteresis_iters: int = 256         # Canny hysteresis sweep bound. The
+    #                                     sweep loop early-exits on
+    #                                     convergence (while_loop), so the
     #                                     bound is runtime-free for converged
     #                                     images; it must sit above the
     #                                     worst-case fixture (ex17 at
@@ -240,7 +240,7 @@ class DetectionConfig:
 
         The reference runs HoughCircles on blurs up to k=7 (img2sgf.py:
         169-175) purely for recall on degraded scans. Measured contract
-        (2026-08-20, real TPU, docs/PARITY.md): bit-exact boards on every
+        (docs/PARITY.md, previous accelerator): bit-exact boards on every
         clean printed fixture, but NOT a parity mode — 16/18 detect
         agreement (ex17 lost, ex11 spurious) and small stone deltas on the
         dense scans (ex5 0.992, ex12 0.983). Use the default config for

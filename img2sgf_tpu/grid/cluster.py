@@ -14,6 +14,7 @@ at max_clusters. Matches the reference's failure mode: fewer than 2 points
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -38,8 +39,12 @@ def cluster_1d(values, valid, threshold: float, max_clusters: int):
     seg = jnp.where(is_valid, seg, max_clusters)  # park invalid entries
 
     one_hot = (seg[None, :] == jnp.arange(max_clusters)[:, None]).astype(jnp.float32)
-    sums = one_hot @ jnp.where(is_valid, v, 0.0)
-    counts = one_hot @ is_valid.astype(jnp.float32)
+    # HIGHEST: the intercepts are non-integer pixel coordinates up to the
+    # image size; a default-precision f32 dot may run in TF32 (10-bit
+    # mantissa) on GPUs and move centres by whole pixels
+    hi = jax.lax.Precision.HIGHEST
+    sums = jnp.matmul(one_hot, jnp.where(is_valid, v, 0.0), precision=hi)
+    counts = jnp.matmul(one_hot, is_valid.astype(jnp.float32), precision=hi)
     centres = jnp.where(counts > 0, sums / jnp.maximum(counts, 1.0), big)
     ccount = jnp.sum((counts > 0).astype(jnp.int32))
     # reference behaviour: <2 samples -> clustering fails -> no centres

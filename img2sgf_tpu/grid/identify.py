@@ -89,6 +89,8 @@ def identify_board(grey_u8, circles_xyr, circles_valid, grid, black_stone_thresh
     ci = closest_indices(circles_xyr[:, 0], vc, hsize)
     cj = closest_indices(circles_xyr[:, 1], hc, vsize)
     # stone[i, j] = any valid circle snaps there: one-hot outer-product OR
+    # (0/1 operands, integer sums < 2^24: exact at default precision,
+    # TF32 included)
     oi = (ci[:, None] == jnp.arange(board_size)[None, :]) & circles_valid[:, None]
     oj = cj[:, None] == jnp.arange(board_size)[None, :]
     stone = (oi.astype(jnp.float32).T @ oj.astype(jnp.float32)) > 0

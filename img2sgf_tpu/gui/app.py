@@ -1,4 +1,4 @@
-"""Tkinter GUI: three-pane editor over the TPU detection pipeline.
+"""Tkinter GUI: three-pane editor over the detection pipeline.
 
 Faithful to the reference's layout and interaction contract
 (img2sgf.py:1005-1254): input / processed / board panes, zoom by
@@ -87,7 +87,7 @@ def run_gui(input_path=None, output_path=None) -> int:
 
     main = tk.Tk()
     main.configure(background="#FFFFC0")
-    main.title("Image to SGF (TPU)")
+    main.title("Image to SGF")
     main.geometry(f"{3 * IMAGE_SIZE + 4 * BORDER}x{IMAGE_SIZE + 230 + 3 * BORDER}")
 
     # --- log window ----------------------------------------------------
@@ -542,7 +542,7 @@ def run_gui(input_path=None, output_path=None) -> int:
 
     from .. import __version__
 
-    log(f"img2sgf_tpu {__version__} — TPU-native rebuild of img2sgf")
+    log(f"img2sgf_tpu {__version__} — JAX rebuild of img2sgf")
     log("Backend: " + jax.default_backend())
     for label, get in (
         ("Tk", lambda: tk.TkVersion),

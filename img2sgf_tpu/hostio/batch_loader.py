@@ -1,9 +1,10 @@
-"""Batched image loading for the TPU input pipeline.
+"""Batched image loading for the device input pipeline.
 
 Uses the native C++ loader (native/loader.cpp: multithreaded libjpeg decode
-+ bilinear resize straight into the batch buffer) when its .so is present
-or buildable; falls back to PIL otherwise. The batch buffer is reused
-across calls so steady-state feeding does no Python-side allocation.
++ bilinear resize straight into the batch buffer) when it builds; falls
+back to PIL otherwise. The library is built from native/ at first use into
+build/ at the checkout root (listed in .gitignore). The batch buffer is
+reused across calls so steady-state feeding does no Python-side allocation.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import subprocess
 
 import numpy as np
 
-_SO = pathlib.Path(__file__).with_name("_loader.so")
-_NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
+_ROOT = pathlib.Path(__file__).resolve().parents[2]
+_NATIVE_DIR = _ROOT / "native"
+_SO = _ROOT / "build" / "_loader.so"
 
 
 def _load_native():
@@ -26,7 +28,7 @@ def _load_native():
                 ["make", "-C", str(_NATIVE_DIR)], check=True,
                 capture_output=True, timeout=120,
             )
-        except Exception:
+        except (OSError, subprocess.SubprocessError):
             return None
     if not _SO.exists():
         return None

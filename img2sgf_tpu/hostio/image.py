@@ -1,14 +1,18 @@
 """Host-side image IO and geometry (PIL), mirroring the reference's
-open/crop/rotate behaviour (img2sgf.py:106-114, 643-660, 769-778)."""
+open/crop/rotate behaviour (img2sgf.py:106-114, 643-660, 769-778).
+
+PIL is imported inside each function, so importing the package and running
+detection on arrays need no Pillow."""
 
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
 
 
 def load_rgb(path: str) -> np.ndarray:
     """Image.open(...).convert('RGB') (img2sgf.py:651)."""
+    from PIL import Image
+
     return np.array(Image.open(path).convert("RGB"))
 
 
@@ -16,6 +20,8 @@ def crop_and_rotate(rgb: np.ndarray, selection, rotate_deg: float) -> np.ndarray
     """Rotate the full image about the selection centre (white fill), then
     crop to the selection (img2sgf.py:110-114). selection = (x1, y1, x2, y2).
     """
+    from PIL import Image
+
     img = Image.fromarray(rgb)
     cx = (selection[0] + selection[2]) / 2
     cy = selection[1] + selection[3] / 2  # reference quirk (img2sgf.py:107)

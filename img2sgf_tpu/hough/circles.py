@@ -18,7 +18,7 @@ OpenCV's algorithm (hough.cpp, HoughCirclesGradient):
      spacing. (Empirically reverse-engineered — float-exact against cv2
      5.0 per-variant output on the fixtures; tools/cv_oracle.py.)
 
-TPU-native design (static shapes, no scatter):
+Design (static shapes, no scatter):
   - Gradient directions are quantized into D bins over [0, pi). Voting
     becomes, per bin, a sum of the bin's edge-pixel plane shifted along the
     bin direction for every radius — computed with a two-level shift
@@ -29,7 +29,7 @@ TPU-native design (static shapes, no scatter):
   - Candidate extraction is top_k over the masked accumulator (vote-order
     ties break by flat index, matching OpenCV's sort).
   - Radius estimation gathers a (2*maxR+1)^2 window per candidate; every
-    pixel's distance bin is static, so the histogram is one MXU matmul
+    pixel's distance bin is static, so the histogram is one matmul
     against a precomputed one-hot, and the anchored run scan is a fixed
     27-iteration masked reduction.
   - The greedy minDist pass is a tiny fori_loop over the support-sorted
@@ -138,8 +138,8 @@ def vote_accumulator_cascade(edge_mask, dx, dy, num_bins: int, min_r: int,
     packed = jnp.pad(packed, pad,
                      constant_values=np.asarray(num_bins, pk_dtype))
 
-    # Exact-integer dtype ladder (measured on v5e — the shift chains are
-    # pure HBM bandwidth, so narrower is faster):
+    # Exact-integer dtype ladder (the shift chains are memory-bound, so
+    # narrower is cheaper):
     #   per-bin planes (P, contrib): int8 when contrib <= n_out*seg = 2*n_r
     #     fits (n_r <= 63); the default r in [1,30] span gives 60.
     #   gsum / acc: int16 when the TOTAL vote bound num_bins * 2 * n_r
@@ -150,8 +150,7 @@ def vote_accumulator_cascade(edge_mask, dx, dy, num_bins: int, min_r: int,
     # GROUP = bins per optimization-barrier step. The barrier bounds
     # liveness (without it the scheduler hoists all num_bins bin planes
     # for ILP and OOMs HBM at batch scale); fewer barrier steps = fewer
-    # acc materialisations (HBM round-trips). GROUP=8 with int16 acc
-    # measured fastest at 512^2 (sweep: tools/micro_cascade_group.py).
+    # acc materialisations (HBM round-trips).
     n_r = max_r - min_r + 1
     bin_dtype = jnp.int8 if 2 * n_r <= 127 else jnp.int32
     if num_bins * 2 * n_r <= 32767 and bin_dtype == jnp.int8:
@@ -191,14 +190,13 @@ def vote_accumulator_cascade(edge_mask, dx, dy, num_bins: int, min_r: int,
 
 def vote_accumulator_packed4(labels4, num_bins: int, min_r: int, max_r: int):
     """Cascade accumulator for FOUR planes at once, one byte each inside a
-    uint32 element (round-4 A/B winner: 11.9 ms vs 43.9 ms per 64 planes
-    at 512^2 on v5e, bit-exact — tools/micro_cascade_pack.py).
+    uint32 element.
 
-    Why it wins: the shipped int8 cascade measured only 21% slower at 2x
-    the bytes (bf16 ladder, DESIGN.md), i.e. it is instruction-ISSUE
-    bound, not HBM-bandwidth bound. All shift offsets are plane-
-    independent, so packing 4 planes into the 4 bytes of one uint32 moves
-    4 planes per vector op at identical HBM bytes — ~4x fewer issues.
+    All shift offsets are plane-independent, so packing 4 planes into the
+    4 bytes of one uint32 moves 4 planes per vector op at identical
+    memory bytes — ~4x fewer instructions than the per-plane cascade.
+    Its cost on the current device is not yet measured against the
+    per-plane form.
 
     Exactness (all integer byte fields, no cross-byte carries):
       * labels <= num_bins <= 0x7E, so no byte has bit 7 set and the
@@ -284,8 +282,8 @@ def vote_accumulator_pool_labels(lbl, num_bins: int, min_r: int, max_r: int):
         lbl = jnp.concatenate(
             [lbl, jnp.full((padn, H, W), num_bins, jnp.uint8)])
     G = (P + padn) // 4
-    # chunked maps mirror the measured micro-benchmark structure (outer
-    # chunks bound compile size, inner map serialises the packed kernels)
+    # outer chunks bound compile size, the inner map serialises the
+    # packed kernels (bounds live intermediates)
     CG = 4 if G % 4 == 0 else (2 if G % 2 == 0 else 1)
     acc = jax.lax.map(
         lambda t: jax.lax.map(
@@ -296,22 +294,15 @@ def vote_accumulator_pool_labels(lbl, num_bins: int, min_r: int, max_r: int):
     return acc.reshape(-1, H, W)[:P]
 
 
-def vote_accumulator(edge_mask, dx, dy, num_bins: int, min_r: int, max_r: int,
-                     use_pallas: bool = False):
+def vote_accumulator(edge_mask, dx, dy, num_bins: int, min_r: int, max_r: int):
     """Centre-vote accumulator A[H, W] (f32).
 
     edge_mask: [H, W] bool (Canny edges with nonzero gradient).
     dx, dy: int32 Sobel gradients.
     """
     # the cascade only feeds the (already approximate) proposal stage; the
-    # exact per-offset chain below remains for A/B and radius spans that
-    # don't divide into segments. The XLA cascade IS the shipped path:
-    # three Pallas formulations were built, measured on-device (v5e), and
-    # deleted — fully-static unrolled rolls (Mosaic compile >25 min),
-    # per-bin dynamic rotates (113 ms vs 62 ms XLA per 64 planes), and a
-    # dihedral-folded 17-bin VMEM kernel (bit-exact but 6.79 ms/plane vs
-    # 1.94 ms XLA at 512^2, with a 374 s Mosaic compile — tools/ab_device
-    # record, 2026-08-19). See docs/DESIGN.md "Kernel strategy".
+    # exact per-offset chain below remains for radius spans that don't
+    # divide into segments.
     if (max_r - min_r + 1) % 5 == 0:
         return vote_accumulator_cascade(edge_mask, dx, dy, num_bins, min_r, max_r)
 
@@ -353,12 +344,11 @@ def top_k_desc(score, k: int):
     """lax.top_k semantics (descending values, ties to the smaller index)
     with a compile-friendly path for big k.
 
-    XLA:TPU's TopK lowering scales badly with k (the k=16384 overflow
-    budgets pushed one bucket program's cold compile past 30 minutes,
-    round-4 measurement); a full stable argsort + slice compiles in
-    seconds and its runtime is k-independent, which is fine on the
-    overflow path where k is a capacity bound, not a hot-loop size. Small
-    k (the base-budget path) keeps the measured-faster lax.top_k.
+    TopK lowerings can scale badly with k in compile time (the k=16384
+    overflow budget); a full stable argsort + slice compiles quickly and
+    its runtime is k-independent, which is fine on the overflow path
+    where k is a capacity bound, not a hot-loop size. Small k (the
+    base-budget path) keeps lax.top_k.
     """
     if k <= _TOPK_SORT_CUTOVER:
         return jax.lax.top_k(score, k)
@@ -383,21 +373,16 @@ def top_k_set_by_count(score, k: int, iters: int = 31, via: str = "count"):
     full positive int32 vote range, unlike the old fixed 16 iterations
     that silently selected ZERO candidates at votes >= 2^16, and
     converging in ~log2(max_vote) ~ 10 steps on real planes), one
-    cumsum for the tie ranks, and a _stream_select. Measured 53 -> ~8 ms
-    per 256 x [65536] planes at k=2048 on v5e vs lax.top_k, and unlike
-    TopK/argsort its compile time and runtime are k-independent (the
-    k=16384 overflow selection rides the same passes). `iters` is
-    retained for API compatibility and ignored.
+    cumsum for the tie ranks, and a _stream_select. Unlike TopK/argsort
+    its compile time and runtime are k-independent (the k=16384
+    overflow selection rides the same passes). `iters` is retained for
+    API compatibility and ignored.
 
     via="sort": same output, selected with one stable f32 argsort plus a
-    [k] index re-sort instead of the counting search. XLA:TPU's generic
-    sort is fast (~1.5 ms per 8x[155k] rows, v5e) while the counting
-    path's ~31 sequential count-reduce dispatches plus _stream_select
-    dominate at STREAM scales (ring/compact selections over 10^4-10^5
-    rows: measured 14 -> ~3 ms). The counting path still wins at the
-    PROPOSE scale (full accumulator planes, 10^5 rows x 100+ vmapped
-    planes, where one [N] pass is cheap and sorts are not) — callers
-    pick: propose counts, stream stages sort.
+    [k] index re-sort instead of the counting search. Callers pick:
+    the propose stage (full accumulator planes, 10^5 rows x 100+
+    vmapped planes) counts, the stream stages (10^4-10^5 rows) sort.
+    Which is faster on the current device is not yet measured.
 
     Returns (votes [k], idx [k], valid [k]): valid is a prefix; rows
     beyond it are clipped fill, votes gathered as-is.
@@ -428,10 +413,10 @@ def top_k_set_by_count(score, k: int, iters: int = 31, via: str = "count"):
         over = jnp.sum(score > mid.astype(score.dtype)) > k
         return jnp.where(over, mid, lo), jnp.where(over, hi, mid)
 
-    # adaptive trip count: each step is one [N] count-reduce dispatch
-    # (~0.8 ms at 48 x [295k] planes), and real vote maxima are a few
-    # hundred, so converging in ceil(log2(hi0)) ~ 10 steps beats any
-    # fixed bound that must also cover the full int32 range
+    # adaptive trip count: each step is one [N] count-reduce, and real
+    # vote maxima are a few hundred, so converging in ceil(log2(hi0)) ~
+    # 10 steps beats any fixed bound that must also cover the full int32
+    # range
     lo, hi = jax.lax.while_loop(
         lambda lohi: lohi[0] + 1 < lohi[1],
         body, (jnp.int32(-1), hi0 + 1))
@@ -499,9 +484,9 @@ def centre_candidates(acc, acc_threshold: float, top_k: int, hw=None,
     if select_min is not None:
         # restrict the SELECTION (not the counts above) to maxima at or
         # above select_min — done inside the score plane so the returned
-        # rows keep the valid-prefix property the Pallas rescore's
-        # dynamic trip count depends on (a post-hoc valid &= filter
-        # would punch holes in the prefix)
+        # rows keep the valid-prefix property the rescore's dead-chunk
+        # skip depends on (a post-hoc valid &= filter would punch holes
+        # in the prefix)
         is_max = is_max & (acc >= select_min)
     if block > 1:
         b = block
@@ -995,8 +980,7 @@ def propose_from_acc(acc, acc_threshold: float, top_k: int, hw=None,
 
 def circle_propose(img_u8, canny_high: float, acc_threshold: float,
                    min_r: int, max_r: int, num_bins: int, top_k: int,
-                   hysteresis_iters: int = 24, hw=None,
-                   use_pallas: bool = False, block: int = 1,
+                   hysteresis_iters: int = 24, hw=None, block: int = 1,
                    threshold_factor: float = 0.5):
     """Stage 1: edges + gradient steps + approximate-accumulator proposals
     (circle_plane_state + propose_from_acc).
@@ -1007,7 +991,6 @@ def circle_propose(img_u8, canny_high: float, acc_threshold: float,
     exact OpenCV vote counts. See DetectionConfig.propose_threshold_factor
     for the measured margin behind the pipeline's default.
     """
-    del use_pallas  # the shipped accumulator is the XLA cascade
     state = circle_plane_state(img_u8, canny_high, min_r, max_r, num_bins,
                                hysteresis_iters=hysteresis_iters, hw=hw)
     ys, xs, valid, sat = propose_from_acc(
@@ -1026,18 +1009,13 @@ def circle_propose(img_u8, canny_high: float, acc_threshold: float,
 
 
 def circle_votes(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
-                 use_pallas: bool = False, cells: int = 3):
+                 cells: int = 3):
     """Stage 2a: exact OpenCV accumulator votes on the (cells x cells)
     patch around each proposal. patch [K, cells, cells] f32.
 
     cells=5 gives every reachable recentre position (the central 3x3) its
     true 4-neighbourhood, so stage 2b's OpenCV NMS test is exact (no
     out-of-patch fallback accepts)."""
-    if use_pallas:
-        from .rescore_pallas import exact_rescore_pallas
-
-        return exact_rescore_pallas(emask, sx, sy, ys, xs, min_r, max_r,
-                                    valid=valid, cells=cells)
     return exact_rescore(
         emask, sx, sy, ys, xs, min_r, max_r, cells=cells, valid=valid,
     )
@@ -1176,7 +1154,7 @@ def provisional_ring(patch, ys, xs, valid, acc_threshold: float, H: int,
 
 def circle_candidates(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
                       acc_threshold: float, H: int, W: int, hw=None,
-                      use_pallas: bool = False, prov_budget: int = 512,
+                      prov_budget: int = 512,
                       peak_budget: int | None = None,
                       dedupe_first: bool = False):
     """Stages 2a-2c: exact candidate extraction around the proposals.
@@ -1197,13 +1175,13 @@ def circle_candidates(emask, sx, sy, ys, xs, valid, min_r: int, max_r: int,
     so callers must trigger the big-budget overflow pass.
     """
     patch = circle_votes(emask, sx, sy, ys, xs, valid, min_r, max_r,
-                         use_pallas=use_pallas, cells=5)
+                         cells=5)
     ys_c, xs_c, votes_c, ok_c = circle_recentre(
         patch, ys, xs, valid, acc_threshold, H, W, hw=hw)
     ys_p, xs_p, valid_p, n_ring = provisional_ring(
         patch, ys, xs, valid, acc_threshold, H, W, prov_budget, hw=hw)
     patch3 = circle_votes(emask, sx, sy, ys_p, xs_p, valid_p, min_r, max_r,
-                          use_pallas=use_pallas, cells=3)
+                          cells=3)
     c = patch3[:, 1, 1]
     h, w = (H, W) if hw is None else hw
     ok_p = (
@@ -1233,14 +1211,7 @@ def _stream_select(live, budget: int):
     """Indices of the first `budget` live rows, in stream order: one
     stable bool argsort (live rows first, original order preserved).
 
-    Measured alternatives on v5e (2026-08-20), all slower in the fused
-    pipeline: cumsum + searchsorted with `budget` queries (searchsorted
-    is ~3 us/query — 49 ms at 16k queries over [155k]); a two-level
-    block scheme (block-count cumsum + small searchsorted + local
-    prefix) that won its microbenchmark but lost ~12% of END-TO-END
-    bench throughput to per-row gather overhead at the [budget, block]
-    gather. The plain stable argsort runs at ~0.7M rows/ms and fuses
-    well. Returns (idx [budget], ok [budget] bool) even when the input
+    Returns (idx [budget], ok [budget] bool) even when the input
     has fewer than `budget` rows (zero-fill; ok is False there)."""
     order = jnp.argsort(jnp.logical_not(live), stable=True)
     if order.shape[0] < budget:
@@ -1269,8 +1240,8 @@ def compact_candidates(ys, xs, votes, valid, W: int, budget: int,
     bitwise-identical rows). Output-equivalent either way — duplicates
     sort adjacently in circle_finalize and die at distance 0 in the
     greedy pass — but deduped streams keep the radius/finalize stages
-    proportional to unique peaks, which measured ~75 ms cheaper per
-    256-plane batch than carrying duplicates through them.
+    proportional to unique peaks instead of carrying duplicates through
+    them.
 
     The default path compacts live rows in STREAM order (sort-free
     _stream_select); when truncation occurs it sets sat and the caller's
@@ -1279,10 +1250,9 @@ def compact_candidates(ys, xs, votes, valid, W: int, budget: int,
     the vote-descending SET — it serves the overflow pass, whose own
     sat flag has no further rerun to trigger, so ITS truncation must
     drop the weakest unique peaks (ties toward smaller stream index via
-    top_k_set_by_count). A full i32-key argsort for the default path's
-    dedupe would cost ~83 ms per 256 planes (measured v5e, [K*9+512 =
-    9728] rows), so that dedupe runs on the [budget]-sized compacted
-    prefix where the key sort is ~7x cheaper.
+    top_k_set_by_count). The default path's dedupe runs on the
+    [budget]-sized compacted prefix rather than the full [K*9+512]
+    stream, so its key sort is several times smaller.
 
     dedupe_first: dedupe the FULL stream before the budget truncation, so
     the budget applies to UNIQUE peaks and sat is exact on the unique
@@ -1362,7 +1332,7 @@ def radius_support_pool(emask_planes, ys, xs, want, min_r: int, max_r: int,
 
     Radius semantics are OpenCV 4.x/5.x HoughCircleEstimateRadiusInvoker:
     a 10-bins-per-dr histogram over f32 edge-pixel distances from
-    (cx+.5, cy+.5) — built here as one MXU matmul against a static one-hot
+    (cx+.5, cy+.5) — built here as one matmul against a static one-hot
     (_hist10_tables) — scanned by _hist10_scan. Returns (r_best [P, K]
     f32, support [P, K] f32 run counts), zeros where not wanted.
     """
@@ -1384,12 +1354,11 @@ def radius_support_pool(emask_planes, ys, xs, want, min_r: int, max_r: int,
 
     if chunk is None:
         # scale the chunk with the pool so the scan stays ~<=128 steps at
-        # batch scale: each lax.map step costs ~0.25 ms in dispatch alone,
-        # so 1024 steps of 256 candidates burned ~250 ms while the live
-        # prefix (want-first sort) fit in a couple dozen steps. Bigger
-        # chunks trade a larger per-step gather (2048 x win^2 f32 ~ 30 MB
-        # HBM reads, well within bandwidth) for far fewer steps; dead
-        # chunks after the live prefix still skip via the cond.
+        # batch scale: every lax.map step has a fixed launch cost, and the
+        # live prefix (want-first sort) fits in a few dozen steps. Bigger
+        # chunks trade a larger per-step gather (2048 x win^2 f32 ~ 30 MB)
+        # for far fewer steps; dead chunks after the live prefix still
+        # skip via the cond.
         chunk = min(2048, max(512, N // 128))
     C = min(chunk, N)
     while N % C:
@@ -1401,7 +1370,9 @@ def radius_support_pool(emask_planes, ys, xs, want, min_r: int, max_r: int,
 
     def run_chunk(cp, cy, cx):
         w = jax.vmap(window)(cp, cy, cx)   # [C, win*win]
-        counts = w @ onehot                # [C, nbins] — integer f32 (MXU)
+        # 0/1 operands with integer sums < 2^24: exact at any matmul
+        # precision, TF32 included, so the default precision is kept
+        counts = w @ onehot                # [C, nbins] integer f32
         return _hist10_scan(counts, min_r)
 
     def maybe_chunk(args):
@@ -1473,7 +1444,7 @@ def hough_circles_gradient(img_u8, canny_high: float, acc_threshold: float,
                            min_dist: float, min_r: int, max_r: int,
                            num_bins: int, top_k: int, max_out: int,
                            hysteresis_iters: int = 24, hw=None,
-                           use_pallas: bool = False, cells: int = 5):
+                           cells: int = 5):
     """Full HOUGH_GRADIENT on one [H, W] uint8 image (stage composition).
 
     Returns (circles [max_out, 3] f32 as (cx, cy, r), valid [max_out] bool).
@@ -1487,7 +1458,7 @@ def hough_circles_gradient(img_u8, canny_high: float, acc_threshold: float,
                         num_bins, top_k, hysteresis_iters, hw=hw)
     ys_c, xs_c, votes, valid2, _ring_sat = circle_candidates(
         st["emask"], st["sx"], st["sy"], st["ys"], st["xs"], st["valid"],
-        min_r, max_r, acc_threshold, H, W, hw=hw, use_pallas=use_pallas,
+        min_r, max_r, acc_threshold, H, W, hw=hw,
     )
     r_best, support = radius_support_pool(
         st["emask"][None], ys_c[None], xs_c[None], valid2[None], min_r, max_r

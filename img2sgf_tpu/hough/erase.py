@@ -14,9 +14,9 @@ LATER valid circle's box covers it — a [C, 5, C] pairwise interval test
 reduced over the later axis. Boxes are order-free (black on black) and
 dots are order-free among themselves (white on white).
 
-TPU-native: the union of all boxes is computed as an outer-product OR —
-rows[H, C] @ cols[C, W] on the MXU — and the surviving dots as a second
-rank-C outer product. No scatter, no loops.
+The union of all boxes is computed as an outer-product OR —
+rows[H, C] @ cols[C, W] — and the surviving dots as a second rank-C
+outer product. No scatter, no loops.
 """
 
 from __future__ import annotations
@@ -47,6 +47,8 @@ def erase_circles(edges_u8, circles_xyr, valid, hw=None):
     cols = (
         (xs[None, :] >= x0[:, None]) & (xs[None, :] <= x1[:, None])
     ).astype(jnp.float32)  # [C, W]
+    # 0/1 operands, integer sums <= C < 2^24: exact at any matmul
+    # precision (TF32 included), so the default precision is kept
     boxed = (rows.T @ cols) > 0  # [H, W]
 
     # centre dots: 5-px diamond at (round(xc), round(yc)). A dot pixel
@@ -74,6 +76,7 @@ def erase_circles(edges_u8, circles_xyr, valid, hw=None):
     for k, (oy, ox) in enumerate(offs):
         drow = ((ys[None, :] == (cyi[:, None] + oy)) & dot_live[:, k : k + 1]).astype(jnp.float32)
         dcol = (xs[None, :] == (cxi[:, None] + ox)).astype(jnp.float32)
+        # 0/1 outer product: exact at default precision, as above
         dot = dot | ((drow.T @ dcol) > 0)
 
     out = jnp.where(boxed, jnp.uint8(0), edges_u8)

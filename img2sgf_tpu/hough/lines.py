@@ -6,13 +6,13 @@ window spans theta in [90-d, 90+d] degrees and the vertical window is the
 union of [0, d] and [180-d, 180], after which the second window's rho is
 negated and theta shifted by -pi (img2sgf.py:245-247).
 
-TPU-native design (no scatter, no data-dependent shapes):
+Design (no scatter, no data-dependent shapes):
   The (rho, theta) vote accumulator has a STATIC structure: the bin index
   of pixel (x, y) at angle t is rint(x*cos t + y*sin t) + (numrho-1)//2,
   data-independent. For near-axis angles the bin splits as
   base[row] + k(row, col) with k in a tiny static range K (~W*sin(1 deg)).
   So per angle:
-    1. K masked row-reductions give rowcount[row, k]  (VPU, fused)
+    1. K masked row-reductions give rowcount[row, k]  (fused)
     2. a prefix-sum over rows + static gathers at searchsorted(base)
        boundaries give counts2[rho_base, k]           (no scatter)
     3. K shifted adds fold k into the final acc[rho]

@@ -106,12 +106,9 @@ def median_blur(img_u8, ksize: int, hw=None):
     Implementation: a compile-time-unrolled min/max comparator network
     over the k*k shifted window planes — Batcher odd-even mergesort
     pruned to the median output (_median_network), pure fused
-    elementwise ops. The previous jnp.sort-along-a-major-axis
-    formulation forced XLA:TPU through layout changes and measured
-    53 ms for k=7 over 32x512^2; the pruned network runs the same
-    median in ~4 ms (bit-identical — any correct comparator network
-    yields the exact order statistic). Capacity: k in {1, 3, 5, 7}
-    like the reference pyramid.
+    elementwise ops (bit-identical to a sort — any correct comparator
+    network yields the exact order statistic). Capacity: k in
+    {1, 3, 5, 7} like the reference pyramid.
     """
     if ksize == 1:
         return img_u8

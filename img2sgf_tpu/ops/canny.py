@@ -1,12 +1,12 @@
-"""Canny edge detection, OpenCV-parity, TPU-friendly.
+"""Canny edge detection, OpenCV-parity.
 
 Reproduces cv.Canny(img, low, high, apertureSize=3, L2gradient=...) as used
 at img2sgf.py:162-165 (on the 3-channel enhanced image) and inside
 HoughCircles (single-channel, thresholds (param1/2, param1)).
 
-Design notes (TPU):
+Design notes:
   - Sobel + magnitude + channel select + sector NMS are pure elementwise /
-    shift ops: XLA fuses them into one VPU pass.
+    shift ops: XLA fuses them into one pass.
   - Hysteresis (8-connected flood from strong seeds through weak candidates)
     is the only iterative part. We alternate segmented row/column fills
     (associative scans, which resolve arbitrarily long straight runs in one
@@ -93,16 +93,6 @@ def hysteresis(strong, cand, iters: int):
     sweep changes nothing (fixtures converge in 2-4 sweeps; `iters` bounds
     the pathological worst case).
     """
-    # On TPU, images that fit VMEM use the Pallas kernel (iterates fully
-    # on-chip); the XLA scan path covers CPU tests and oversized images.
-    H, W = strong.shape[-2], strong.shape[-1]
-    from .common import tpu_backend
-
-    if tpu_backend() and strong.ndim == 2 and H * W <= 600_000:
-        from .hysteresis_pallas import hysteresis_pallas
-
-        return hysteresis_pallas(strong, cand, iters)
-
     cand_u8 = cand.astype(jnp.uint8)
     edge0 = (strong & cand).astype(jnp.uint8)
 
@@ -157,10 +147,9 @@ def hysteresis_pool(strong, cand, iters: int):
     The sweep's primitives (segmented OR-scan, 3x3 dilation, masking) are
     all boolean, so packing 32 planes into the 32 bits of one uint32 plane
     runs them bit-parallel: each scan/shift moves and combines 32 planes
-    per vector op. This replaces P per-plane kernel launches with one
-    fixed-point loop over ceil(P/32) packed planes, and has no VMEM size
-    cutoff (unlike hysteresis_pallas) — it is the batch path for every
-    canvas bucket, 512 through 1280. Convergence is the max over the pool
+    per vector op. This replaces P per-plane loops with one fixed-point
+    loop over ceil(P/32) packed planes — the batch path for every canvas
+    bucket. Convergence is the max over the pool
     (the while_loop early-exits when NO plane changes); fixtures converge
     in 2-5 sweeps.
 
@@ -183,30 +172,8 @@ def hysteresis_pool(strong, cand, iters: int):
     gate = pack(cand)
     edge0 = pack(strong & cand)
 
-    # On TPU, packed planes that fit VMEM iterate fully on-chip: the XLA
-    # while_loop below pays ~1-6 ms of dispatch-bound HBM passes per
-    # sweep. Measured (2026-08-20, bit-equal): the 768-bucket book-scan
-    # pool 58 -> 7.5 ms; the 1280-bucket photo-textured scans (ex15/16,
-    # ~54 sweeps — diagonal edge runs propagate ~one dilation hop per
-    # sweep) ~1.0 s -> ~0.2 s. Mosaic compile is per plane shape and
-    # scales with it (~28 s at 768^2, ~220 s at 1280^2); each bucket's
-    # pipeline program uses exactly one shape for both the outer and the
-    # internal Canny, so the cost is paid once per bucket program. Lane
-    # width must be 128-aligned for pltpu.roll; the XLA loop is also the
-    # CPU-tests fallback. A diagonal-shear fill variant was measured
-    # (34 sweeps instead of 54) but the XLA shears cost more than the
-    # sweeps they save (703 vs 324 ms).
-    from .common import tpu_backend
-
-    if (tpu_backend() and W % 128 == 0 and H % 8 == 0
-            and H * W * 4 * 10 <= 100 * 1024 * 1024):
-        from .hysteresis_pallas import hysteresis_pallas_packed
-
-        edge = hysteresis_pallas_packed(edge0, gate, iters)
-        bits = jnp.arange(32, dtype=jnp.uint32)
-        un = (edge[:, None] >> bits[None, :, None, None]) & jnp.uint32(1)
-        return un.reshape(G * 32, H, W)[:P].astype(jnp.bool_)
-
+    # Sweeps needed grow with the longest diagonal edge run, which
+    # propagates about one dilation hop per sweep.
     def cond(state):
         i, _, changed = state
         return (i < iters) & changed
@@ -278,8 +245,7 @@ def _canny_pre(img_u8, low: float, high: float, l2gradient: bool, hw):
     img = img_u8.astype(jnp.int32)
     if img.ndim == 3:
         # per-channel Sobel, then per-pixel pick the channel with max
-        # magnitude (first channel wins ties, like OpenCV's strict >);
-        # compare-select chains beat take_along_axis gathers on TPU
+        # magnitude (first channel wins ties, like OpenCV's strict >)
         chans = jnp.moveaxis(img, -1, 0)  # [C, H, W]
         dx, dy = sobel3(chans)
         if l2gradient:

@@ -1,4 +1,4 @@
-"""Data-parallel scale-out over a TPU mesh.
+"""Data-parallel scale-out over a device mesh.
 
 The reference is a single-process desktop app with zero parallelism
 (SURVEY §2.3); the only parallel axis in this domain is the image batch.

@@ -83,37 +83,6 @@ jax.tree_util.register_dataclass(
 )
 
 
-def _use_pallas_rescore(cfg: DetectionConfig, H: int, W: int) -> bool:
-    """Pallas exact-vote kernel on TPU backends; XLA elsewhere (CPU tests),
-    for canvases whose padded plane would strain VMEM, and for radius
-    ranges outside the kernel's packed-geometry bounds (max_r + patch
-    reach <= 32 — see rescore_pallas._build_kernel)."""
-    from ..ops.common import tpu_backend
-
-    if not tpu_backend():
-        return False
-    reach = cfg.rescore_cells // 2
-    if cfg.circle_max_radius + reach > 32 or cfg.circle_min_radius < 1:
-        return False
-    pad = cfg.circle_max_radius + 2 * reach + 2  # = ext + reach
-    return (H + 2 * pad + 15) * (W + 2 * pad + 127) * 4 <= (24 << 20)
-
-
-def _use_pallas_radius(cfg: DetectionConfig, H: int, W: int) -> bool:
-    """Pallas radius-histogram kernel on TPU backends (see
-    hough/radius_pallas.py); XLA gather path elsewhere (CPU tests) and
-    for canvases whose padded plane would strain VMEM or radius ranges
-    outside the kernel's window geometry (win + 7 <= 80)."""
-    from ..ops.common import tpu_backend
-
-    if not tpu_backend():
-        return False
-    if cfg.circle_max_radius > 36 or cfg.circle_min_radius < 1:
-        return False
-    pad = cfg.circle_max_radius
-    return (H + 2 * pad + 15) * (W + 2 * pad + 127) * 4 <= (24 << 20)
-
-
 def _variant_dedup(cfg: DetectionConfig, V: int):
     """Identity-blur dedup: cv.medianBlur / cv.GaussianBlur at ksize 1 are
     identities (img2sgf.py:174-175 with k=1), so variants 2 and 3 equal
@@ -162,19 +131,16 @@ def _plane_state_pool(planes, cfg: DetectionConfig, hw_planes):
     big-budget overflow for saturated planes — without redoing the ~60%
     of stage-1 cost that doesn't depend on any capacity knob.
 
-    Chunks the plane axis: one fused XLA program over all B*V planes
-    drops out of the compiler's fast fusion regime (439 -> 259 ms for
-    256 planes when mapped in chunks of 16; same work, better schedule).
+    Chunks the plane axis (CP planes per lax.map step) to bound the size
+    of each fused program and the live intermediates.
 
     The accumulator runs OUTSIDE the per-plane map when the byte-packed
     pooled cascade's bounds hold (the defaults): 4 planes share each
-    uint32 element, ~4x fewer vector issues at identical HBM bytes
-    (hough.circles.vote_accumulator_packed4; 43.9 -> 11.9 ms per 64
-    planes at 512^2 on v5e, bit-exact). The internal Canny's hysteresis
-    also runs OUTSIDE the map: one shared bit-packed fixed-point loop over
-    all P planes (ops.canny.canny_pool, 32 planes per uint32) replaces P
-    per-plane sweeps — and has no VMEM cutoff, so every canvas bucket
-    (512 through 1280) takes the same path.
+    uint32 element, so each vector op moves 4 planes
+    (hough.circles.vote_accumulator_packed4, bit-exact). The internal
+    Canny's hysteresis also runs OUTSIDE the map: one shared bit-packed
+    fixed-point loop over all P planes (ops.canny.canny_pool, 32 planes
+    per uint32) replaces P per-plane sweeps.
     """
     from ..hough.circles import cascade_pool_eligible, vote_accumulator_pool_labels
     from ..ops.canny import canny_pool
@@ -257,12 +223,10 @@ def _circles_from_state(st, cfg: DetectionConfig, hw_planes,
     ALL proposals of proposal-saturated planes right after the propose
     stage — their base results are replaced wholesale by the big-budget
     rerun (_circles_pooled), so their rescore/radius work is pure waste
-    (the Pallas rescore's dynamic trip count and the radius pool's
-    dead-chunk skip turn zero proposals into ~zero cost; measured 6 of
-    48 planes on the 768-bucket bench batch).
+    (the rescore's and the radius pool's dead-chunk skips turn zero
+    proposals into ~zero cost).
     """
     H, W = st["acc"].shape[-2], st["acc"].shape[-1]
-    use_pallas = _use_pallas_rescore(cfg, H, W)
     top_k = cfg.max_center_candidates if top_k is None else top_k
     prov_budget = cfg.max_ring_candidates if prov_budget is None else prov_budget
     peak_budget = cfg.max_peak_candidates if peak_budget is None else peak_budget
@@ -299,7 +263,6 @@ def _circles_from_state(st, cfg: DetectionConfig, hw_planes,
                 lambda e, a, b, y, x, v: circle_candidates(
                     e, a, b, y, x, v, cfg.circle_min_radius,
                     cfg.circle_max_radius, cfg.circle_acc_threshold, H, W,
-                    use_pallas=use_pallas,
                     prov_budget=prov_budget, peak_budget=peak_budget,
                     dedupe_first=dedupe_first,
                 )
@@ -309,27 +272,17 @@ def _circles_from_state(st, cfg: DetectionConfig, hw_planes,
                 lambda e, a, b, y, x, v, h, w: circle_candidates(
                     e, a, b, y, x, v, cfg.circle_min_radius,
                     cfg.circle_max_radius, cfg.circle_acc_threshold, H, W,
-                    hw=(h, w), use_pallas=use_pallas,
+                    hw=(h, w),
                     prov_budget=prov_budget, peak_budget=peak_budget,
                     dedupe_first=dedupe_first,
                 )
             )(st["emask"], st["sx"], st["sy"], ys, xs, pvalid,
               hw_planes[0], hw_planes[1])
     with jax.named_scope("circle_radius"):
-        # valid2 is a live prefix per plane (compact_candidates), which
-        # the Pallas kernel's dynamic trip count requires
-        if _use_pallas_radius(cfg, H, W):
-            from ..hough.radius_pallas import radius_support_pallas
-
-            r_best, support = radius_support_pallas(
-                st["emask"], ys_c, xs_c, valid2,
-                cfg.circle_min_radius, cfg.circle_max_radius,
-            )
-        else:
-            r_best, support = radius_support_pool(
-                st["emask"], ys_c, xs_c, valid2,
-                cfg.circle_min_radius, cfg.circle_max_radius,
-            )
+        r_best, support = radius_support_pool(
+            st["emask"], ys_c, xs_c, valid2,
+            cfg.circle_min_radius, cfg.circle_max_radius,
+        )
     with jax.named_scope("circle_finalize"):
         circles, valid = jax.vmap(
             lambda y, x, v, r, s: circle_finalize(
@@ -356,10 +309,8 @@ def _circles_on_planes(planes, cfg: DetectionConfig, hw_planes,
 def _overflow_chunk(P: int) -> int:
     """Rerun-chunk width for the overflow pass: a divisor of P so chunks
     reshape cleanly, SMALL so the saturated-plane-sorted prefix wastes
-    few innocent planes per big-budget chunk (RP=16 ran the big pass on
-    16 planes when only 8 were saturated — half the ~400 ms overflow
-    cost of the 768-bucket bench batch was planes that didn't need it;
-    RP=4 bounds that waste to 3 planes at ~0.25 ms/chunk dispatch)."""
+    few innocent planes per big-budget chunk (RP=4 runs the big pass on
+    at most 3 unsaturated planes, at the price of more chunk steps)."""
     for c in (4, 6, 8, 2, 16, 1):
         if c <= P and P % c == 0:
             return c

@@ -1,7 +1,7 @@
-// Native batch image loader for the TPU input pipeline.
+// Native batch image loader for the device input pipeline.
 //
 // The reference decodes one image at a time through PIL on the GUI thread
-// (img2sgf.py:651). For batched TPU throughput the host must keep the chip
+// (img2sgf.py:651). For batched throughput the host must keep the device
 // fed: this loader decodes JPEGs with libjpeg across a pthread pool and
 // writes RGB (optionally bilinearly resized) directly into a caller-owned
 // [B, H, W, 3] uint8 buffer, so Python never touches per-pixel data.

@@ -31,16 +31,17 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from img2sgf_tpu.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.distributed.initialize(f"127.0.0.1:{port}", num_processes=2,
                            process_id=pid,
                            initialization_timeout=300)
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from img2sgf_tpu.config import DetectionConfig  # noqa: E402
 from img2sgf_tpu.parallel import (  # noqa: E402

@@ -1,17 +1,31 @@
-"""Native batch loader: decode correctness vs PIL, fallback path."""
+"""Native batch loader: decode correctness vs PIL, fallback path.
 
-import glob
+The JPEGs are rendered diagrams (chip_smoke.render_diagram) written by PIL.
+"""
 
 import numpy as np
 import pytest
 from PIL import Image
 
+import chip_smoke
 import img2sgf_tpu.hostio.batch_loader as bl
 
 
 @pytest.fixture(scope="module")
-def jpeg_paths(test_images_dir):
-    return sorted(glob.glob(str(test_images_dir / "*.jpg")))[:4]
+def jpeg_paths(tmp_path_factory):
+    d = tmp_path_factory.mktemp("jpegs")
+    paths = []
+    for seed, (h, w, n) in enumerate(((200, 180, 9), (240, 260, 11),
+                                      (160, 160, 7), (220, 200, 0))):
+        rgb, _ = chip_smoke.render_diagram(seed, h, w, n, n)
+        paths.append(str(d / f"d{seed}.jpg"))
+        Image.fromarray(rgb).save(paths[-1], quality=90)
+    return paths
+
+
+def test_native_loader_builds_from_the_tree():
+    assert bl.native_available()
+    assert bl._SO.parent.name == "build" and bl._SO.exists()
 
 
 def test_decode_batch_matches_pil_closely(jpeg_paths):

@@ -50,40 +50,6 @@ def test_exact_rescore_matches_brute_force_walk(cells):
         np.testing.assert_array_equal(got[i], want, err_msg=f"candidate {i}")
 
 
-@pytest.mark.parametrize("cells", [3, 5])
-def test_pallas_rescore_matches_xla(cells):
-    """Interpret-mode Pallas rescore == XLA exact_rescore, bit for bit."""
-    from img2sgf_tpu.hough.rescore_pallas import exact_rescore_pallas
-
-    rng = np.random.default_rng(11)
-    H = W = 96
-    K = 32
-    emask = rng.random((H, W)) < 0.10
-    ang = rng.uniform(0, 2 * np.pi, (H, W))
-    sx = (np.rint(1024 * np.cos(ang)).astype(np.int32)) * emask
-    sy = (np.rint(1024 * np.sin(ang)).astype(np.int32)) * emask
-    ys = rng.integers(0, H, K)  # include border candidates
-    xs = rng.integers(0, W, K)
-    valid = np.ones(K, bool)
-    valid[-7:] = False  # prefix-valid with dead tail
-
-    want = np.asarray(
-        exact_rescore(
-            jnp.asarray(emask), jnp.asarray(sx), jnp.asarray(sy),
-            jnp.asarray(ys), jnp.asarray(xs), 1, 30, cells,
-            valid=jnp.asarray(valid),
-        )
-    )
-    got = np.asarray(
-        exact_rescore_pallas(
-            jnp.asarray(emask), jnp.asarray(sx), jnp.asarray(sy),
-            jnp.asarray(ys), jnp.asarray(xs), 1, 30,
-            valid=jnp.asarray(valid), chunk=8, cells=cells, interpret=True,
-        )
-    )
-    np.testing.assert_array_equal(got[valid], want[valid])
-
-
 def _full_accumulator(emask, sx, sy, min_r, max_r):
     """Brute-force exact centre-vote accumulator (the full-image analogue
     of _brute): every edge pixel walks both directions at all radii with
@@ -260,42 +226,6 @@ def test_selection_budget_exceeds_plane():
         acc, 30.0, 16384, margin_factor=0.7, select_floor=19.5)
     assert ys.shape == (16384,) and valid.shape == (16384,)
     assert not bool(sat)
-
-
-def test_radius_pallas_matches_xla_pool():
-    """Interpret-mode Pallas radius kernel == the XLA window-gather
-    radius_support_pool, bit for bit (same _hist10_tables binning by
-    construction; this pins the block/roll geometry and field packing),
-    including border candidates and a dead suffix."""
-    from img2sgf_tpu.hough.circles import radius_support_pool
-    from img2sgf_tpu.hough.radius_pallas import radius_support_pallas
-
-    rng = np.random.default_rng(9)
-    H, W = 120, 136
-    K = 24
-    emask = rng.random((H, W)) < 0.12
-    yy, xx = np.mgrid[0:H, 0:W]
-    for (ry, rx, rr) in ((40, 40, 11), (80, 90, 23), (64, 64, 5)):
-        d = np.sqrt((yy - ry) ** 2 + (xx - rx) ** 2)
-        emask |= np.abs(d - rr) < 0.6
-    ys = rng.integers(0, H, K)  # include border candidates
-    xs = rng.integers(0, W, K)
-    ys[:3], xs[:3] = (40, 80, 64), (40, 90, 64)
-    want_mask = np.ones(K, bool)
-    want_mask[-5:] = False  # live prefix with dead tail
-
-    want_r, want_s = radius_support_pool(
-        jnp.asarray(emask)[None], jnp.asarray(ys)[None],
-        jnp.asarray(xs)[None], jnp.asarray(want_mask)[None], 1, 30,
-        chunk=8,
-    )
-    got_r, got_s = radius_support_pallas(
-        jnp.asarray(emask)[None], jnp.asarray(ys)[None],
-        jnp.asarray(xs)[None], jnp.asarray(want_mask)[None], 1, 30,
-        interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(got_r), np.asarray(want_r))
-    np.testing.assert_array_equal(np.asarray(got_s), np.asarray(want_s))
 
 
 def test_finalize_matches_cv2_selection():

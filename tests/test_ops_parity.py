@@ -1,6 +1,6 @@
 """Op-level parity tests vs PIL / OpenCV on real fixture images.
 
-These quantify how close each TPU op is to the library call it replaces.
+These quantify how close each op is to the library call it replaces.
 Preprocess and greyscale must be bit-exact; blurs and Canny are allowed a
 tiny mismatch budget (documented per-op) since downstream detection is
 judged at board level against tests/golden/.

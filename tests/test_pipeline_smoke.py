@@ -1,6 +1,6 @@
 """Always-on pipeline smoke tests at tiny sizes (CPU-friendly compiles).
 
-Full-fixture board parity runs on TPU via tools/parity_report.py; here we
+Full-fixture board parity runs on the GPU via tools/parity_report.py; here we
 verify the jitted program end-to-end on a synthetic grid: detection,
 classification, SGF round trip, and batch/vmap consistency.
 """

@@ -1,6 +1,6 @@
 """Per-class CPU baseline for the reference algorithm: mean end-to-end
 latency/throughput of the headless reference re-run on each canvas-bucket
-class the TPU bench reports (768-bucket book scans, 1280-bucket large
+class the bench reports (768-bucket book scans, 1280-bucket large
 scans) — so bench.py's vs_baseline ratios compare like against like
 (BASELINE.md's 6.66 img/s is an 18-fixture mean dominated by small
 fixtures; the large-scan class is much slower on CPU too).

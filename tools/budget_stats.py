@@ -35,9 +35,9 @@ def main(names):
     if "--cpu" in names:
         names.remove("--cpu")
         jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
-    else:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
+    from img2sgf_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from img2sgf_tpu.config import DetectionConfig
     from img2sgf_tpu.hostio import load_rgb

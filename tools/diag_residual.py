@@ -78,7 +78,7 @@ def big_budget_stages(plane_u8, cfg):
         ys_c, xs_c, votes, valid2, _ = circle_candidates(
             st["emask"], st["sx"], st["sy"], ys, xs, pvalid,
             cfg.circle_min_radius, cfg.circle_max_radius,
-            cfg.circle_acc_threshold, H, W, use_pallas=False,
+            cfg.circle_acc_threshold, H, W,
             prov_budget=prov, peak_budget=peak, dedupe_first=True)
         r_best, support = radius_support_pool(
             st["emask"][None], ys_c[None], xs_c[None], valid2[None],
@@ -114,9 +114,9 @@ def main(names):
     if "--cpu" in names:
         names.remove("--cpu")
         jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
-    else:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
+    from img2sgf_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from img2sgf_tpu.config import DetectionConfig
     from reference_headless import detect_circles, preprocess as ref_preprocess

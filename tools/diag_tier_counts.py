@@ -25,8 +25,9 @@ sys.path.insert(0, "/root/repo")
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from img2sgf_tpu.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
 
 
@@ -73,7 +74,7 @@ def main(names):
                 lambda e, a, b, y, x, v, hh, ww: circle_candidates(
                     e, a, b, y, x, v, cfg.circle_min_radius,
                     cfg.circle_max_radius, cfg.circle_acc_threshold, H, W,
-                    hw=(hh, ww), use_pallas=False,
+                    hw=(hh, ww),
                     prov_budget=max(cfg.overflow_ring_candidates,
                                     cfg.max_ring_candidates),
                     peak_budget=None,

@@ -3,7 +3,7 @@
 This module is a TEST UTILITY, not part of the shipped framework. It uses
 OpenCV + scikit-learn to reproduce, stage by stage, what the reference GUI
 tool computes (/root/reference/img2sgf.py), so we can commit golden outputs
-(final boards + SGF + stage summaries) that the TPU-native pipeline is
+(final boards + SGF + stage summaries) that the JAX pipeline is
 judged against, and measure the reference's CPU performance for BASELINE.md.
 
 Structured as pure functions over an explicit config; no GUI, no globals.
